@@ -1,9 +1,9 @@
 """Example 6 — the bit-packed fast engine end to end: compiled random
-rollout throughput, the MXU-native Q-learning trainer, and an animated-GIF
+rollout throughput, the matmul-form Q-learning trainer, and an animated-GIF
 replay of the learned greedy policy (the headless 'graphic' render).
 
     python examples/06_fast_engine.py                    # CPU
-    python examples/06_fast_engine.py --platform tpu     # real chip
+    python examples/06_fast_engine.py --platform gpu     # on a card
 """
 
 import time
@@ -49,7 +49,7 @@ def main():
         f"({eps:,.0f} episodes, mean return {float(stats['mean_return']):.1f})"
     )
 
-    # 2) MXU-native Q-learning to the optimal policy
+    # 2) matmul-form Q-learning to the optimal policy
     train = compile_q_learning_fast(
         sem, bl, batch_size=256, num_steps=args.train_steps,
         alpha=0.2, epsilon=0.2, max_episode_steps=100,

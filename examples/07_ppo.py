@@ -1,4 +1,4 @@
-"""Example 7 — PPO on the MXU: GAE + clipped surrogate, one jitted scan.
+"""Example 7 — PPO: GAE + clipped surrogate, one jitted scan.
 
 The whole training run (rollouts through the bit-packed env step, GAE,
 epochs x minibatches of clipped-surrogate SGD) is a single XLA program;

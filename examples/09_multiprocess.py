@@ -5,12 +5,13 @@ it spawns `--procs` copies of itself, joins them into ONE global device
 mesh via `jax.distributed.initialize`, and trains the sharded Q-learner
 across the process boundary — every process executes the same program,
 owns its addressable env shards, and the psums ride the collective
-fabric (Gloo here; ICI/DCN on a real slice).
+fabric (Gloo here; NCCL between cards).
 
     python examples/09_multiprocess.py --procs 2 --devices_per_proc 4
 
-On a real multi-host TPU slice, skip the launcher: run your per-host
-command with `initialize()` (no args — JAX infers everything).
+On real multi-host hardware, skip the launcher: run your per-host
+command with `initialize(coordinator_address=..., num_processes=...,
+process_id=...)`.
 """
 
 from __future__ import annotations

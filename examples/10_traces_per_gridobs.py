@@ -6,12 +6,12 @@ Three beyond-reference capabilities on one level, back to back:
   1. SARSA(λ) — eligibility traces bridging one-step TD and Monte-Carlo
      (per-env trace tensors, one-hot outer-product bumps, no scatters).
   2. DQN with prioritized replay — proportional PER WITHOUT a sum-tree:
-     Gumbel-top-k through `lax.approx_max_k` (docs/PERFORMANCE.md §9).
-  3. PPO with `obs="grid"` — tile+agent planes through a conv trunk on
-     the MXU instead of the index-embedding MLP (§10).
+     Gumbel-top-k through `lax.top_k`.
+  3. PPO with `obs="grid"` — tile+agent planes through a conv trunk
+     instead of the index-embedding MLP.
 
     python examples/10_traces_per_gridobs.py
-    python examples/10_traces_per_gridobs.py --platform tpu --envs 4096
+    python examples/10_traces_per_gridobs.py --platform gpu --envs 4096
 """
 
 from _common import parse_args

@@ -1,6 +1,6 @@
 """One agent, thousands of mazes: per-env-level PPO with grid observations.
 
-The flagship composition (BASELINE configs 4 + 5; docs/PERFORMANCE.md §12):
+The flagship composition (BASELINE configs 4 + 5):
 generate N DISTINCT perfect mazes ON DEVICE, train one conv-trunk PPO agent
 across all of them simultaneously (each env lives in its own maze — the
 level tiles enter the network as per-sample planes), then evaluate the
@@ -10,10 +10,10 @@ Also shows the solver side of the same composition: batched value
 iteration solves every training maze at once, giving the optimal success
 ceiling for comparison.
 
-Run (defaults are CPU-sized; scale up on TPU — the GENERALIZATION.json
+Run (defaults are CPU-sized; scale up on a card — the GENERALIZATION.json
 flagship setting is the second line):
     python examples/11_maze_generalization.py
-    python examples/11_maze_generalization.py --platform tpu \
+    python examples/11_maze_generalization.py --platform gpu \
         --mazes 1024 --updates 1500 --channels 32 --hidden 64
 """
 

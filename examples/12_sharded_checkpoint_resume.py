@@ -8,10 +8,9 @@ and rerun it: it restores the latest checkpoint and continues from the
 last COMPLETED chunk (counter-based RNG makes the chunked run bit-equal
 to an unbroken one; tests/test_sharded_resume.py pins it). Resume
 granularity is the chunk: a kill mid-chunk replays that chunk, so pick
-`updates_per_chunk` as your acceptable replay window — re-entry costs
-~5-15 ms/chunk (measured, docs/PERFORMANCE.md §15), so any chunk worth
-a few hundred ms of compute amortizes it to noise, and even per-update
-chunking only costs ~1.5x. Saves run in the
+`updates_per_chunk` as your acceptable replay window — each chunk pays
+one dispatch and one save, so chunks worth a few hundred ms of compute
+amortize that to noise. Saves run in the
 BACKGROUND (`async_=True`): the training loop only pays the
 host-snapshot cost at the chunk boundary while the serialize+fsync
 overlaps the next chunk, which makes small chunks cheap.

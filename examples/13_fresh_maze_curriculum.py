@@ -2,8 +2,7 @@
 
 When the generalization frontier becomes DATA-bound — any fixed training
 set of N mazes trains well but generalizes poorly because N mazes no
-longer cover the maze space (first seen at 11×11; docs/PERFORMANCE.md
-§12.2) — the fix is not a bigger batch. It is the framework's own
+longer cover the maze space (first seen at 11×11) — the fix is not a bigger batch. It is the framework's own
 chunked-training contract: train in chunks, REGENERATING the training
 set from a fresh key every chunk, and carry params + optimizer state
 (including the lr schedule's Adam step count) across the level swap via
@@ -20,7 +19,7 @@ survive a crash).
 Run (defaults are CPU-sized; the second line is the committed 11×11
 GENERALIZATION.json recipe — held-out 0.90–0.93 across five seeds):
     python examples/13_fresh_maze_curriculum.py
-    python examples/13_fresh_maze_curriculum.py --platform tpu \
+    python examples/13_fresh_maze_curriculum.py --platform gpu \
         --cells 5 --mazes 1024 --eval_mazes 256 --chunks 32 \
         --updates_per_chunk 500 --channels 32 --hidden 64
 """
@@ -70,7 +69,7 @@ def main():
 
     eval_lv = maze_levels(jax.random.PRNGKey(99), args.eval_mazes)
     # ablation control: same agent, WRONG tile planes — success here is
-    # motion prior, not maze reading (docs/PERFORMANCE.md §12)
+    # motion prior, not maze reading
     abl_lv = Level(
         grid=jnp.roll(eval_lv.grid, 1, axis=0), start_idx=eval_lv.start_idx
     )

@@ -2,7 +2,7 @@
 
 Reference (SURVEY.md §2.1 #5, §3.3): tabular `policy_evaluation`,
 `policy_iteration`, `value_iteration` as S×A Python loops calling
-`env.look_step_ahead`. TPU-first (SURVEY.md §7.1 step 5): the model is a
+`env.look_step_ahead`. Vectorized (SURVEY.md §7.1 step 5): the model is a
 precomputed dense (S, A) table (core.model) and every sweep is a single fused
 gather + reduction over the whole state space inside a `lax.while_loop` — no
 Python in the loop, the entire solve is ONE XLA program.

@@ -3,7 +3,7 @@
 Reference (SURVEY.md §2.1 #6): first-visit MC prediction and ε-greedy MC
 control from sampled episodes, as Python episode loops.
 
-TPU-first redesign: B episodes of fixed max length T are rolled in parallel
+Vectorized redesign: B episodes of fixed max length T are rolled in parallel
 (vmap) inside one `lax.scan` (freeze-on-done gives fixed shapes — XLA needs
 static shapes, SURVEY.md §7); returns are a reverse scan; FIRST-VISIT
 detection is a (T, T) triangular self-comparison per episode (tiny: T≤ a few
@@ -110,8 +110,7 @@ def mc_prediction(
     episodes under the ε-greedy(policy_q) — or uniform-random — policy.
 
     Episodes still running at `max_steps` carry PARTIAL returns; including
-    them biases V toward zero wherever the step budget binds (VERDICT r1
-    weakness #2). They are therefore EXCLUDED by default — only episodes
+    them biases V toward zero wherever the step budget binds. They are therefore EXCLUDED by default — only episodes
     whose terminal was reached contribute. `include_unfinished=True`
     restores the biased everything-counts estimator (useful only when
     max_steps provably never binds and the extra samples are wanted).
@@ -167,7 +166,7 @@ def mc_control(
     the whole training run is one XLA program.
 
     As in `mc_prediction`, unfinished episodes (partial returns) are
-    excluded from the update by default (VERDICT r1 weakness #2).
+    excluded from the update by default.
     """
     num_states = level.grid.shape[-2] * level.grid.shape[-1]
     num_actions = sem.deltas.shape[0]

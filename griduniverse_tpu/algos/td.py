@@ -3,7 +3,7 @@
 Reference (SURVEY.md §2.1 #7, §3.4): a Python episode loop with ε-greedy
 draws and scalar `Q[s,a] += α·(r + γ·max Q[s'] − Q[s,a])` updates.
 
-TPU-first redesign (SURVEY.md §7.1 step 5):
+Vectorized redesign (SURVEY.md §7.1 step 5):
   * The whole training run is ONE `lax.scan` over steps of B vmapped
     auto-reset envs — no host round-trips.
   * Batched scatter updates: many envs may hit the same (s, a) in one step.
@@ -26,8 +26,8 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
-from flax import struct
 
+from ..utils import struct
 from ..core.semantics import Semantics
 from ..core.step import step_autoreset
 from ..core.types import EnvState, Level
@@ -302,7 +302,7 @@ def double_q_learning(
 
     with the same MEAN collision aggregation as `apply_td_updates`.
 
-    coin — which table each transition updates (VERDICT r1 weakness #6):
+    coin — which table each transition updates:
       * "per_env" (default): an independent coin PER ENV splits the batch
         between the tables every step — the faithful batched analogue of
         the sequential algorithm's per-update coin, and every transition

@@ -8,7 +8,7 @@ one XLA program trains N independent tabular agents at once (the
 shared-Q learners in algos/td.py are the wrong tool across DISTINCT
 mazes, where experience must not mix).
 
-TPU-first design:
+Design:
   * Env transitions ride the bit-packed step engine (ops/bitplane.py) on
     the batched BitLevel — gather-free.
   * Per-env Q-row lookups `Q[n, s_n]` are the same branchless select
@@ -63,11 +63,9 @@ class BatchedTDResult(NamedTuple):
 
 
 def _q_rows(q: jnp.ndarray, s: jnp.ndarray) -> jnp.ndarray:
-    """Q[n, s_n, :] → (N, A): select tree below the measured TPU
-    crossover, gather above it — the same threshold as dp_batched's
-    lookup="auto" (the tree's program size is linear in S; past ~2k
-    states compile time explodes while the gather is also the faster
-    program — docs/PERFORMANCE.md §17)."""
+    """Q[n, s_n, :] → (N, A): select tree up to dp_batched's
+    lookup="auto" threshold, gather above it (the tree's program size is
+    linear in S; past ~2k states compile time explodes)."""
     if q.shape[1] <= _SELECT_TREE_MAX_STATES:
         return _select_tree(
             [q[:, k, :] for k in range(q.shape[1])], s[:, None]
@@ -149,8 +147,7 @@ def q_learning_batched(
     with t continuing), so chunked runs are bit-equal to unbroken ones.
     `q0` alone warm-starts tables but RESTARTS envs and the stream.
     dtype — Q-table storage dtype. "bfloat16" HALVES the (N, S, A)
-    stream this row is bound by: measured 1.75× on v5e at 64k mazes
-    (docs/PERFORMANCE.md §16). TD errors are still computed in f32; the
+    table stream each step reads and writes. TD errors are still computed in f32; the
     semantics delta is bf16 rounding of the stored tables (α·δ
     increments below ~1/256 of a Q entry's magnitude are lost), which
     the convergence test bounds. Ignored when q0/state0 supply tables.

@@ -1,44 +1,41 @@
-"""MXU-native tabular TD control — the fast Q-learning/SARSA engine.
+"""Matmul-form tabular TD control — the fast Q-learning/SARSA engine.
 
 The generic TD learner (algos/td.py) is built from dynamic gathers
-(`q[s]`, `q[s2]`, env-step tile lookups) and segment_sum scatters — all
-slow serialized primitives on TPU (docs/PERFORMANCE.md §2: ~565 µs per
-64k-element gather). This module re-expresses every table access as dense
-linear algebra on the MXU plus the bit-packed select-tree step:
+(`q[s]`, `q[s2]`, env-step tile lookups) and segment_sum scatters. This
+module re-expresses every table access as dense linear algebra plus the
+bit-packed select-tree step — a design made for the TPU, whose gathers and
+scatters serialize; ROADMAP Speed item 5 times it against the scatter form
+on the GPU:
 
   * env transition      → ops.bitplane step (gather-free select trees);
   * Q(s, ·) row lookup  → FACTORIZED one-hot matmul (below);
   * V(s') = max Q(s',·) → same factorized lookup against max_A Q;
   * the (s,a)-aggregated update (segment_sum in td.py) → scatter-add as a
-    transposed matmul; the MXU is the TPU's scatter engine.
+    transposed matmul.
 
-FACTORIZATION (the r2 6.3× lever; VERDICT r1 weakness #1): a (B, S)
-one-hot costs S bytes/env/step of HBM traffic. Writing s = hi·L + lo with
-S = H·L, `one_hot(s) = one_hot_H(hi) ⊗ one_hot_L(lo)`, every one-hot
-contraction splits into a (B, H) matmul plus a tiny lo-contraction that
-XLA fuses on the VPU:
+FACTORIZATION: a (B, S) one-hot costs S bytes/env/step of memory traffic.
+Writing s = hi·L + lo with S = H·L, `one_hot(s) = one_hot_H(hi) ⊗
+one_hot_L(lo)`, every one-hot contraction splits into a (B, H) matmul plus
+a tiny lo-contraction that XLA fuses elementwise:
 
   row lookup   : y = p_hi @ Q.reshape(H, L·A); rows = Σ_lo p_lo ⊙ y
   V(s') lookup : t = p2_hi @ V.reshape(H, L);  v_s2 = Σ_lo p2_lo ⊙ t
   update       : w = p_lo ⊙ u → (B, L·2A);     ZZ = p_hiᵀ @ w → (H, L·2A)
 
-The largest (B, ·) operand drops from S=256 to H=64 columns. Measured on
-TPU v5e at B=64k, S=256 (tools/td_fast_experiments.py, fetch-fenced):
-238 µs/iter → 38 µs/iter — 275M → 1727M transitions/s (sweep: H=64/L=4
-best; 32/8 → 45 µs, 16/16 → 50 µs, 128/2 → 233 µs). The per-env results
-are arithmetically IDENTICAL to the unfactored form (one-hot products
-select exact bf16 values either way); only the f32 accumulation order over
-colliding envs can differ in the last bit.
+The largest (B, ·) operand drops from S=256 to H=64 columns. The per-env
+results are arithmetically IDENTICAL to the unfactored form (one-hot
+products select exact bf16 values either way); only the f32 accumulation
+order over colliding envs can differ in the last bit.
 
-Operands are bf16 with f32 MXU accumulation — one-hot entries are exact
-in bf16, counts accumulate in f32 (exact), and only the Q reads / αδ
+Operands are bf16 with f32 accumulation — one-hot entries are exact in
+bf16, counts accumulate in f32 (exact), and only the Q reads / αδ
 increments see bf16 rounding (covered by the precision contract below).
 
 Update semantics match algos/td.apply_td_updates: colliding (s, a)
 increments take the MEAN of α·δ (the α-scaling guard of SURVEY.md §7.3);
 every env's δ is computed against the same pre-update Q (synchronous
-batched TD). Numerics: matmuls run at the backend's default precision
-(bf16 inputs, f32 accumulation on TPU), so Q values may differ from the
+batched TD). Numerics: matmuls take bf16 inputs with f32 accumulation,
+so Q values may differ from the
 exact gather path in the last ~8 bits — the contract here is "converges to
 the optimal policy" (tested), not bit-parity; use algos/td.py when you
 need the bit-exact/checkpoint-parity path.
@@ -57,8 +54,8 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
+from ..utils import struct
 from ..core.semantics import Semantics
 from ..ops.bitplane import (
     BitLevel,
@@ -79,8 +76,7 @@ class FastTDResult(NamedTuple):
 @struct.dataclass
 class FastTDTrainState:
     """Full resumable state of the fast engine (SURVEY.md §5 checkpoint row:
-    "the full learner pytree … + env-state + RNG keys"; VERDICT r1 missing
-    #3). Every bit of run-to-run state is explicit here — the Q-table, the
+    "the full learner pytree … + env-state + RNG keys"). Every bit of run-to-run state is explicit here — the Q-table, the
     per-env FastState (agent index/tile code/step counter/done), the
     xorshift RNG lanes, and the episode accumulators — so chunked training
     across checkpoint boundaries is BIT-EXACT equal to one unbroken scan
@@ -137,9 +133,9 @@ def fast_td_result(ts: FastTDTrainState) -> FastTDResult:
 def _factor_split(num_states: int) -> tuple[int, int]:
     """Pick the hi/lo factorization S = H·L for the one-hot split.
 
-    The v5e sweep (module docstring) puts the optimum at small L (the
-    update's (B, L·2A) operand grows with L; the lookup's (B, H) operand
-    with H — L=4 balances them at S=256). Prefer L=4, degrade through
+    Small L balances the two operands (the update's (B, L·2A) operand
+    grows with L; the lookup's (B, H) operand with H — L=4 balances them
+    at S=256; chosen on the TPU, re-tested by ROADMAP Speed item 5). Prefer L=4, degrade through
     smaller divisors; L=1 (prime S) degenerates to the unfactored form
     with p_lo ≡ 1, which is still correct.
     """
@@ -173,8 +169,7 @@ def compile_q_learning_fast(
 ):
     """Factory: returns a jitted `fn(seed, q0) -> FastTDResult` running the
     whole training loop as ONE XLA program, with the semantics/level tables
-    baked in as compile-time constants (the 10× lever; docs/PERFORMANCE.md
-    §3). algo — "q_learning" (off-policy max target) or "expected_sarsa"
+    baked in as compile-time constants. algo — "q_learning" (off-policy max target) or "expected_sarsa"
     (ε-greedy expectation target); both act ε-greedily.
     """
     if algo not in ("q_learning", "expected_sarsa"):

@@ -6,13 +6,13 @@ Beyond-reference capability: the reference stops at one-step TD control
 one-step TD and its Monte-Carlo methods (#6), so they round out the
 textbook tabular family for users switching from the reference.
 
-TPU-first design:
+Design:
   * Each env carries its OWN eligibility tensor e_i — shape (B, S, A) for
     control, (B, S) for prediction — exactly the per-episode trace of the
     sequential algorithm, vectorized over envs.
   * The trace bump is a broadcasted one-hot outer product
     `e ← γλ·e + onehot(s) ⊗ onehot(a)` — elementwise + broadcast only, no
-    scatters (the slow primitive on TPU, docs/PERFORMANCE.md §2).
+    scatters (chosen for the TPU, where scatters serialize).
   * Tiny traces are flushed to exact zero below `trace_cutoff` (standard
     practice): keeps the batched aggregation's visit counts honest and the
     whole tensor sparse-in-value.

@@ -14,9 +14,8 @@ CPU). Two interchangeable backends:
     (`utils.oracle.OracleGridEnv`), which is proven bit-identical to the
     JAX core by tests/test_parity.py. A single imperative Python-loop env
     is exactly the regime where an interpreter-side step wins: the jitted
-    path pays a ~150 µs dispatch round trip PER `step()` call (measured
-    r2: 5,985 steps/s), while the oracle steps at >5e5 steps/s — faster
-    than the reference's own pure-Python loop (BASELINE.md est. 1e4–1e5).
+    path pays a dispatch round trip PER `step()` call, while the oracle
+    is plain NumPy on the host.
   * `backend="jax"` — every step calls the SAME jitted `core.step` kernel
     the 64k-env path uses, pinned to the host CPU backend. Use when the
     env state must live in the JAX world (e.g. composing with other

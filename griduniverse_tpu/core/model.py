@@ -2,7 +2,7 @@
 
 The reference's DP solvers call `env.look_step_ahead(state, action)` — a pure
 model lookahead with no env mutation — inside S×A Python loops (SURVEY.md
-§3.3). TPU-first, we precompute the WHOLE model once as three dense (S, A)
+§3.3). Here we precompute the WHOLE model once as three dense (S, A)
 device arrays by vmapping the core transition over every (state, action)
 pair; every DP sweep is then pure gathers/reductions with no Python in the
 loop (SURVEY.md §7.1 step 5).
@@ -15,8 +15,8 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
+from ..utils import struct
 from .semantics import Semantics
 from .step import _move
 from .types import Level

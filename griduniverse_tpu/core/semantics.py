@@ -12,7 +12,7 @@ character alphabet, action ordering) lives HERE, in one config object, so that
 parity constants can be snapped to the real reference later without touching
 any kernel or algorithm code (SURVEY.md §0 "Action for the future session").
 
-Design notes (TPU-first):
+Design notes:
   * `Semantics` is a pytree of tiny device arrays. The per-tile-code tables
     (`passable`, `terminal`, `reward`) turn the reference's Python `if` chains
     into single gathers, which XLA fuses into the step kernel.
@@ -29,10 +29,7 @@ from typing import Mapping, Tuple
 import jax.numpy as jnp
 import numpy as np
 
-try:  # flax.struct gives frozen dataclass pytrees
-    from flax import struct
-except ImportError:  # pragma: no cover - flax is baked into the image
-    struct = None
+from ..utils import struct
 
 # ---------------------------------------------------------------------------
 # Tile codes (int32 on device). START is a parser-level marker only: the
@@ -109,27 +106,25 @@ class SemanticsConfig:
         return passable, terminal, reward, deltas
 
 
-if struct is not None:
+@struct.dataclass
+class Semantics:
+    """Device-resident semantics tables (a pytree of tiny arrays).
 
-    @struct.dataclass
-    class Semantics:
-        """Device-resident semantics tables (a pytree of tiny arrays).
+    passable[t] — can the agent enter a tile with code t?
+    terminal[t] — does entering code t end the episode?
+    reward[t]   — reward received on a step that ENDS on code t
+                  (per-step cost folded into non-terminal entries).
+    deltas[a]   — (drow, dcol) for action a.
+    """
 
-        passable[t] — can the agent enter a tile with code t?
-        terminal[t] — does entering code t end the episode?
-        reward[t]   — reward received on a step that ENDS on code t
-                      (per-step cost folded into non-terminal entries).
-        deltas[a]   — (drow, dcol) for action a.
-        """
+    passable: jnp.ndarray  # (T,) bool
+    terminal: jnp.ndarray  # (T,) bool
+    reward: jnp.ndarray    # (T,) float32
+    deltas: jnp.ndarray    # (A, 2) int32
 
-        passable: jnp.ndarray  # (T,) bool
-        terminal: jnp.ndarray  # (T,) bool
-        reward: jnp.ndarray    # (T,) float32
-        deltas: jnp.ndarray    # (A, 2) int32
-
-        @property
-        def num_actions(self) -> int:
-            return int(self.deltas.shape[0])
+    @property
+    def num_actions(self) -> int:
+        return int(self.deltas.shape[0])
 
 
 def make_semantics(config: SemanticsConfig | None = None) -> "Semantics":

@@ -6,7 +6,7 @@ candidate is off-grid or a wall, commits, then returns
 `(obs=new index, reward, done, info)` with reward = per-step cost | lava
 penalty | goal reward and done = new state ∈ {goal, lava}.
 
-TPU-first design:
+Design:
   * Zero Python branching on traced values — the whole step is index
     arithmetic + two gathers (tile code, reward) + `jnp.where` chains, which
     XLA fuses into a single elementwise kernel over the env batch.

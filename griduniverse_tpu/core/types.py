@@ -1,7 +1,7 @@
 """Core pytree types: Level, EnvState, StepResult.
 
 The reference env (SURVEY.md §2.1 #1) is a mutable `gym.Env` object holding
-the grid, the agent position and a step counter. TPU-first, that state becomes
+the grid, the agent position and a step counter. Here that state becomes
 two immutable pytrees of packed integer arrays:
 
   * `Level`    — the static world: an (H, W) int32 tile-code grid plus the
@@ -11,9 +11,9 @@ two immutable pytrees of packed integer arrays:
   * `EnvState` — the per-env dynamic state: agent index, step counter, done
                  flag and a PRNG key (for procedurally regenerated levels and
                  stochastic variants). A few bytes per env, so 64k envs is
-                 still ~1 MB — far below HBM or VMEM limits.
+                 still ~1 MB.
 
-Everything is a `flax.struct` dataclass, i.e. a registered JAX pytree, so the
+Everything is a `utils.struct` dataclass, i.e. a registered JAX pytree, so the
 whole env state vmaps, shards (`NamedSharding` over an `env` mesh axis), scans
 and checkpoints (orbax) with zero glue code.
 """
@@ -22,7 +22,8 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+
+from ..utils import struct
 
 
 @struct.dataclass

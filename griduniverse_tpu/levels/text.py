@@ -5,7 +5,7 @@ constructor kwarg parses a text file, one char per tile, into wall/lava/goal
 sets plus a start position. Exact alphabet unverified [R] — ours is driven by
 the configurable mapping in core.semantics (DEFAULT_CHAR_TO_TILE).
 
-TPU-first: parsing is HOST-side NumPy, done once; the result is uploaded as a
+Parsing is HOST-side NumPy, done once; the result is uploaded as a
 packed int32 grid (SURVEY.md §7.1 step 3 "host-side text parser … NumPy →
 device upload, done once"). Nothing here is ever traced.
 """

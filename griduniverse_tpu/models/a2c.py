@@ -6,10 +6,10 @@ The neural counterpart of the tabular learners (BASELINE north star:
   * One `train` call = one jitted `lax.scan` over U updates; each update is
     a T-step rollout scan of B vmapped auto-reset envs, an n-step-return
     computation (reverse scan), one forward/backward pass over the (T, B)
-    batch (MXU matmuls), and an optax update. Zero host round-trips inside.
+    batch, and an optax update. Zero host round-trips inside.
   * Distributed: identical body inside `shard_map` — envs sharded over the
     mesh, params/opt-state replicated, gradients combined with ONE
-    `jax.lax.pmean` per update (the all-reduce; rides ICI). This is
+    `jax.lax.pmean` per update (the all-reduce). This is
     textbook data-parallel SGD expressed in the mesh idiom — no
     parameter-server or NCCL code.
 """
@@ -23,9 +23,9 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 import optax
-from flax import struct
 from jax.sharding import Mesh, PartitionSpec as P
 
+from ..utils import struct
 from ..core.semantics import Semantics
 from ..core.types import Level
 import numpy as np
@@ -45,16 +45,13 @@ class A2CConfig:
     ent_coef: float = 0.01
     max_grad_norm: float = 0.5
     max_episode_steps: int | None = None  # auto-reset time-limit truncation
-    # r3 defaults: hidden 128x128/embed 64 -> 64x64/16. Measured on
-    # TPU v5e at 64k envs: PPO 32.4 -> 115.6M steps/s (the (B, 128)
-    # bf16 activation traffic dominated the update; embed 16 also
-    # activates the factored hi/lo lookup, models/networks.py), with
-    # IDENTICAL convergence on the corridor and lava-9x9 tasks
-    # (docs/PERFORMANCE.md s8.2). Gridworld state spaces (S <= a few
-    # thousand) need nowhere near 128-wide trunks.
+    # Trunk widths 64x64 with a 16-wide embedding (which also activates
+    # the factored hi/lo lookup, models/networks.py): gridworld state
+    # spaces (S <= a few thousand) need no wider trunks, and the corridor
+    # and lava-9x9 tasks converge as with 128x128/64.
     hidden: tuple[int, ...] = (64, 64)
     embed_dim: int = 16
-    # matmul precision ("bfloat16" rides the MXU at full rate; params and
+    # matmul precision ("bfloat16" runs the matmuls in bf16; params and
     # losses stay f32 — models/networks.py). Set "float32" for bit-level
     # reproducibility studies.
     compute_dtype: str = "bfloat16"
@@ -64,8 +61,7 @@ class A2CConfig:
     obs: str = "index"
     conv_channels: tuple[int, ...] = (32, 32)  # obs="grid" trunk widths
     # agent-plane lowering for per-env-level conv trunks
-    # (networks.BatchedConvActorCritic.agent_plane; "stamp" measured +22%
-    # end-to-end at ch32, 2.4x at ch16 — tools/conv_probe.py)
+    # (networks.BatchedConvActorCritic.agent_plane)
     agent_plane: str = "stamp"
     # lr schedule — see PPOConfig.lr_schedule / models/optim.py. Unit:
     # A2C updates (one Adam step each). Chunk-invariant via opt_state.
@@ -218,7 +214,7 @@ def _make_update_body(sem, bl, cfg, net, tx, batch_local, base_key, axes=None,
     `tiles` non-None → per-env-level conv trunk (planes enter every apply).
 
     Env transitions run through the bit-packed step (ops/bitplane.py) —
-    with the nn trunk this makes the whole update gather-free on TPU (the
+    with the network trunk this makes the whole update gather-free (the
     observation embedding is a one-hot matmul too, models/networks.py).
     """
 
@@ -253,7 +249,7 @@ def _make_update_body(sem, bl, cfg, net, tx, batch_local, base_key, axes=None,
         # (T, B, A), (T, B); per-env tiles broadcast over the T axis
         logits, values = _net_apply(net, params, obs, tiles)
         logp = jax.nn.log_softmax(logits)
-        # one-hot sum, not take_along_axis — no gathers anywhere on TPU
+        # one-hot sum, not take_along_axis — no gathers anywhere
         p_a = jax.nn.one_hot(actions, logits.shape[-1], dtype=logp.dtype)
         logp_a = jnp.sum(logp * p_a, axis=-1)
         adv = jax.lax.stop_gradient(returns - values)
@@ -441,7 +437,7 @@ def a2c_init_sharded(
     cfg: A2CConfig = A2CConfig(),
     batch_size: int = 256,
 ) -> A2CTrainState:
-    """Initial FULL train state for the sharded path (VERDICT r3 next #1).
+    """Initial FULL train state for the sharded path.
 
     Same A2CTrainState pytree as the single-device path, laid out over the
     mesh: params/opt_state/key/update/last_loss replicated; env_state and

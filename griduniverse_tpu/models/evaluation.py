@@ -5,8 +5,8 @@ batch scale: roll every env's greedy policy in lockstep (freeze-on-done)
 and report which envs reached a terminal tile. Works uniformly over the
 three network families (index MLP, shared-level conv, per-env-level
 conv — tile planes are derived automatically for a needs-tiles net) and
-over shared or batched levels, so the per-env-level generalization
-measurements of docs/PERFORMANCE.md §12 are one call.
+over shared or batched levels, so a per-env-level generalization
+measurement is one call.
 """
 
 from __future__ import annotations
@@ -43,7 +43,7 @@ def greedy_reached(
     PLANES from a different Level than the step dynamics — the
     wrong-tiles ablation control (pass e.g. a roll-by-one of `levels`; a
     policy that actually reads the maze collapses, a motion prior does
-    not — docs/PERFORMANCE.md §12)."""
+    not)."""
     if tiles_levels is not None and not getattr(net, "needs_tiles", False):
         raise ValueError(
             "tiles_levels only applies to per-env-level (needs-tiles) "
@@ -102,7 +102,7 @@ def greedy_reached_tabular(
     policies that algos.dp / algos.dp_batched produce — rolled on the same
     bitplane engine with the same goal-only success semantics, so VI's
     optimal ceiling and PPO's learned score are directly comparable
-    (VERDICT r3 next #5; closes examples/11's promised comparison).
+    (closes examples/11's promised comparison).
 
     policy — (S,) int actions for a shared level, or (N, S): one policy
     per maze for a batched (N, H, W) level (e.g. from
@@ -129,12 +129,9 @@ def greedy_reached_tabular(
     st = reset_bits(bl, batch)
 
     # Per-step action lookup policy[..., state]: branchless select tree
-    # below the measured TPU crossover, a gather above it — the same
-    # threshold algos.dp_batched's lookup="auto" uses (the select tree's
-    # program size is linear in S; at 65×65 (S=4225) tracing a
-    # 4225-leaf tree per scan step stalls compilation for minutes,
-    # while past ~2k states the gather is also the faster program —
-    # docs/PERFORMANCE.md §17 crossover measurements).
+    # up to algos.dp_batched's threshold, a gather above it (the select
+    # tree's program size is linear in S; at 65×65 (S=4225) tracing a
+    # 4225-leaf tree per scan step stalls compilation for minutes).
     n_states = policy.shape[-1]
     if n_states <= _SELECT_TREE_MAX_STATES:
         leaves = [policy[..., k] for k in range(n_states)]

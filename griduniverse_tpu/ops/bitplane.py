@@ -1,25 +1,23 @@
-"""Bit-packed step engine — the TPU speed-of-light hot path.
+"""Bit-packed step engine — the throughput hot path.
 
 Why this exists: the generic step (core/step.py) looks up tile attributes
-with dynamic gathers (`grid_flat[cand_idx]`). XLA lowers a dynamic gather on
-TPU to a slow serialized path — measured ~565 µs for a single 64k-element
-gather from a 256-entry table on a v5e chip, i.e. the gather IS the step
-cost (everything else in the step is sub-microsecond VPU arithmetic). The
-TPU's vector unit has no cross-lane gather hardware, so the TPU-native
-answer is to stop gathering:
+with dynamic gathers (`grid_flat[cand_idx]`). The engine was designed for a
+TPU, whose vector unit has no cross-lane gather, so it stops gathering.
+Whether that still pays on the GPU, where a gather from a table this small
+is served from cache, is ROADMAP Speed item 4; `chip_smoke.py` times both
+engines on the same rollout. The scheme:
 
   * Pack the level's tile codes into uint32 words, `16 codes × 2 bits` per
     word (`BitLevel`). A 16×16 level is 16 words; a 9×9 maze is 6.
   * Look a code up with a branchless binary SELECT TREE over those words
     (`ceil(S/16) − 1` vector selects) followed by a shift/mask — all plain
-    VPU elementwise ops that XLA fuses into the surrounding step.
+    elementwise ops that XLA fuses into the surrounding step.
   * Carry the agent's CURRENT tile code through the rollout scan, so each
     step performs exactly ONE packed lookup (the candidate cell).
 
-Measured effect (TPU v5e, 64k envs, 16×16 level): ~1.3 µs per vectorized
-step vs ~1.5 ms for the gather-based step — ~1000×. Per-env levels (each
-env its own maze, BASELINE config 4) pay the same cost: the select tree is
-elementwise over the batch either way.
+Per-env levels (each env its own maze, BASELINE config 4) pay the same
+cost as a shared level: the select tree is elementwise over the batch
+either way.
 
 Semantics are IDENTICAL to core/step.py (`_move`/`step`/`step_autoreset`/
 `step_autoreset_truncated`) — same blocked rule, same reward/done tables,
@@ -36,13 +34,14 @@ Reference behavior recon: SURVEY.md §3.2 (step), §7.3–7.6 (throughput plan).
 
 from __future__ import annotations
 
+import dataclasses
 from functools import partial
 from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
+from ..utils import struct
 from ..core.semantics import Semantics
 from ..core.types import Level
 
@@ -72,8 +71,8 @@ class BitLevel:
     code_words: jnp.ndarray
     start_idx: jnp.ndarray
     start_code: jnp.ndarray
-    height: int = struct.field(pytree_node=False)
-    width: int = struct.field(pytree_node=False)
+    height: int = dataclasses.field(metadata={"static": True})
+    width: int = dataclasses.field(metadata={"static": True})
 
     @property
     def num_states(self) -> int:
@@ -349,8 +348,7 @@ def random_scan_bits(
     accumulators instead of summing them locally.
 
     Statistics accumulate per env (pure elementwise adds) and reduce across
-    envs once at the end — per-step cross-lane reductions measurably slow
-    the scan (~+1 µs/iter each at 64k envs on v5e).
+    envs once at the end, keeping cross-env reductions out of the scan.
     """
     num_actions = sem.deltas.shape[0]
     shape = state.agent_idx.shape
@@ -435,8 +433,7 @@ def rollout_random_bits(
     sem/bl are TRACED here, so one compilation serves many levels — use this
     form when composing inside a larger jit. For peak single-level
     throughput use `compile_rollout_random`, which bakes the level/semantics
-    tables in as compile-time constants: XLA then folds the select trees,
-    measured ~10× faster per step (26.5 → 2.6 µs/iter at 64k envs on v5e).
+    tables in as compile-time constants so XLA folds the select trees.
 
     rng — "xorshift" (fast per-env stream, default) or "threefry"
           (jax.random, same draw pattern as ops.rollout.rollout_random).
@@ -461,14 +458,12 @@ def compile_rollout_random(
     """Peak-throughput factory: returns a jitted `fn(seed) -> (state, stats)`
     with the semantics tables and packed level CLOSED OVER — they trace as
     compile-time constants, letting XLA constant-fold the select trees into
-    the fused step (the benchmark engine; see rollout_random_bits docstring
-    for the measured difference).
+    the fused step (the benchmark engine).
 
     unroll — lax.scan unroll factor. Purely a scheduling knob (results are
-    bit-identical for any value: the per-env op sequence is unchanged);
-    unroll=16 amortizes the TPU while-loop trip overhead, measured 1.43×
-    at 64k envs on v5e (3.20 → 2.24 µs/iter; sweep: 8→2.34, 16→2.24,
-    24→2.35, 64→3.66 — instruction-cache pressure past ~16).
+    bit-identical for any value: the per-env op sequence is unchanged).
+    The default 16 was tuned on the TPU to amortize its loop-trip
+    overhead; ROADMAP Speed item 3 re-tunes it on the GPU.
     """
 
     @jax.jit

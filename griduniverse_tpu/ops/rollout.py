@@ -1,11 +1,11 @@
 """Vectorized stepping and scan rollouts — the throughput engine.
 
 Reference hot loop (SURVEY.md §3.2/§3.4): an interpreted Python `while` around
-`env.step`. TPU-first replacement (SURVEY.md §7.1 step 4): `jax.vmap` of the
+`env.step`. Vectorized replacement (SURVEY.md §7.1 step 4): `jax.vmap` of the
 scalar step over the env batch, wrapped in `jax.lax.scan` over time, all under
 ONE `jit` — so a whole T×B rollout is a single XLA program with zero host
-round-trips, the thing that makes >10^8 steps/s reachable (BASELINE.md,
-SURVEY.md §7.3–7.6 "keep the whole rollout inside one jit'd scan").
+round-trips (SURVEY.md §7.3–7.6 "keep the whole rollout inside one jit'd
+scan").
 
 Conventions:
   * batched `EnvState` = the scalar pytree with a leading env axis on every

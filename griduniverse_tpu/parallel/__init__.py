@@ -1,8 +1,9 @@
 """Multi-device / multi-host parallelism (SURVEY.md §2.3, §7.1 step 6).
 
-Mesh + PartitionSpec + shard_map + XLA collectives — the TPU-native
-replacement for a distributed backend. No NCCL/MPI equivalents exist or are
-needed; psum/all_gather ride ICI within a slice and DCN across slices.
+Mesh + PartitionSpec + shard_map + XLA collectives in place of a
+distributed backend: the program names psum/all_gather and the runtime
+carries them (NCCL over NVLink between cards, Gloo between CPU
+processes).
 """
 
 from .bitplane import (

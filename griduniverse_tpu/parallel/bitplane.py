@@ -3,7 +3,7 @@
 Combines the two performance layers of this framework:
 
   * the bit-packed select-tree step (ops/bitplane.py) — gather-free,
-    constant-folded, ~1000× the gather step on TPU;
+    constant-folded;
   * env data-parallelism over a device mesh via `shard_map`
     (parallel/rollout.py) — the BASELINE north-star scaling axis.
 
@@ -16,7 +16,7 @@ reduction order. This is the "determinism tests across device counts stand
 in for race tests" strategy of SURVEY.md §5.
 
 The level tables are baked into the per-device program as compile-time
-constants (the 10× lever measured in docs/PERFORMANCE.md §3). Per-env
+constants so XLA folds the select trees. Per-env
 batched levels (one maze per env) are embedded whole and each shard
 dynamic-slices its rows by mesh position — keeping constant-folding AND
 sharding.
@@ -148,7 +148,7 @@ def compile_q_learning_fast_sharded(
     algo: str = "q_learning",
     max_episode_steps: int | None = None,
 ):
-    """Distributed MXU-native Q-learning (the BASELINE north-star "sharded
+    """Distributed matmul-form Q-learning (the BASELINE north-star "sharded
     tabular learner via all-reduce", on the fast engine): envs sharded over
     the mesh, Q replicated, and each step's ΔQ/count matmul aggregates
     psum'd before the update — so the replicated Q advances identically on

@@ -1,7 +1,7 @@
-"""Multi-process runtime — the real multi-host path (VERDICT r1 missing #1).
+"""Multi-process runtime — the real multi-host path.
 
-SURVEY.md §2.3 promises envs "sharded over hosts on a v5p multi-host slice;
-each host owns its addressable shard of the env-state arrays", and §5's
+SURVEY.md §2.3 promises envs "sharded over hosts ... each host owns its
+addressable shard of the env-state arrays", and §5's
 failure-detection row says multi-host runs "rely on JAX distributed init
 failure semantics". Everything in parallel/ is written against a global
 `Mesh` and is process-count agnostic; this module supplies the missing
@@ -14,8 +14,8 @@ host-boundary plumbing:
     _sharded, value_iteration_sharded, the neural learners) runs
     unchanged on the multi-process mesh: each process executes the same
     program, owns its addressable shard of env state, and the psums ride
-    the real collective fabric (ICI/DCN on TPU slices; Gloo on the CPU
-    test harness).
+    the real collective fabric (NCCL between cards; Gloo on the CPU test
+    harness).
   * `make_global_array(...)` — per-process data feed: builds a global
     sharded array where each process materializes ONLY its addressable
     shards (the host-boundary I/O story; callback form of
@@ -25,14 +25,13 @@ host-boundary plumbing:
 
 Failure semantics (exercised in tests/test_distributed_multiprocess.py):
 losing a process makes the next collective fail with a backend error
-(Gloo/ICI timeout) on the surviving processes rather than silently
+(a Gloo or NCCL timeout) on the surviving processes rather than silently
 corrupting state — recovery is checkpoint-restart (utils/checkpoint.py +
 the SIGKILL drills in tests/test_fault_tolerance.py).
 
-On this box the path is validated with N OS processes × M virtual CPU
-devices (no multi-chip hardware); the same calls bootstrap a real v5p
-slice where JAX infers every argument from the TPU environment
-(`initialize()` with no args).
+The tests validate the path with N OS processes × M virtual CPU devices.
+On GPU hosts nothing tells JAX of a cluster: pass the coordinator
+address, process count and process id explicitly.
 """
 
 from __future__ import annotations
@@ -52,11 +51,11 @@ def initialize(
 ) -> dict:
     """Bootstrap this process into a multi-process JAX runtime.
 
-    On a real TPU slice, call with NO arguments — JAX infers everything
-    from the TPU pod environment. On the CPU test harness, pass all of
-    (coordinator_address, num_processes, process_id) plus
-    `local_device_count` to give each process that many virtual CPU
-    devices (must be set BEFORE any JAX backend initializes).
+    Pass all of (coordinator_address, num_processes, process_id); on a
+    cluster whose scheduler JAX recognizes they may be left out. On the
+    CPU test harness, also pass `local_device_count` to give each process
+    that many virtual CPU devices (must be set BEFORE any JAX backend
+    initializes).
 
     Returns a summary dict {process_id, process_count, local_devices,
     global_devices}. Idempotent-hostile: call exactly once per process.
@@ -76,10 +75,8 @@ def initialize(
     import jax
 
     if platform is not None:
-        # Plain config update, NOT utils.platform.force_platform: that
-        # helper queries jax.devices() to validate, which would initialize
-        # a backend BEFORE jax.distributed.initialize — here no backend
-        # may exist yet, so the bare update is both sufficient and safe.
+        # Plain config update, no jax.devices() check: that would
+        # initialize a backend BEFORE jax.distributed.initialize.
         jax.config.update("jax_platforms", platform)
 
     kwargs: dict[str, Any] = {}

@@ -2,11 +2,10 @@
 
 BASELINE config 5: "On-device tabular Q-learning / value iteration over the
 vectorized model, multi-host sharded envs" with a "sharded tabular learner
-via all-reduce". TPU-native mechanism (SURVEY.md §2.3): envs sharded over
-the mesh, the Q-table REPLICATED on every device, and each step's
-segment-summed TD increments combined with `jax.lax.psum` — the XLA
-collective that rides ICI within a slice (the NCCL-allreduce equivalent,
-with zero backend code).
+via all-reduce". Mechanism (SURVEY.md §2.3): envs sharded over the mesh,
+the Q-table REPLICATED on every device, and each step's segment-summed TD
+increments combined with `jax.lax.psum` — an all-reduce the runtime
+carries (NCCL between cards), with zero backend code.
 
 Determinism contract (tested on the 8-device CPU mesh,
 tests/test_parallel.py):
@@ -76,13 +75,12 @@ def q_learning_sharded(
     steps its local envs, computes local per-(s, a) α·δ sums + visit counts,
     psums both across the mesh, and applies the global mean update to its
     replica of Q. One psum of 2·S·A floats per step — for a 16×16 grid
-    that's ~8 KB, pure ICI latency.
+    that's ~8 KB, pure collective latency.
 
     psum_every=k (k > 1) amortizes that latency: each shard accumulates
     its raw α·δ sums and visit counts over a k-step WINDOW against the Q
     frozen at the window start, then one psum + one pooled mean update
-    per window — 1/k the collectives at fixed work (measured in
-    SCALING_MEASURED.json / docs/SCALING.md "Validation"). Documented
+    per window — 1/k the collectives at fixed work. Documented
     semantics delta vs k=1: within a window, action draws and bootstrap
     targets read the window-start Q (the staleness a sync-period-k
     parameter server would have), and the window's visits pool into ONE
@@ -131,7 +129,7 @@ def q_learning_sharded(
         bit-identical streams to the single-device run, O(B) work per
         shard (fine for the parity contract, wasteful at scale).
 
-        scalable mode (VERDICT r1 weakness #5): fold the shard index into
+        scalable mode: fold the shard index into
         the step key and draw only the LOCAL (B/n,) randoms — O(B/n) work
         and different-but-independent streams per shard (the same
         global-id-keyed-lanes scheme parallel/bitplane.py uses)."""
@@ -453,7 +451,7 @@ def mc_control_sharded(
     """Distributed ε-greedy MC control — episodes sharded over the mesh,
     Q replicated, per-round (first-visit) return aggregates all-reduced
     (completes the distributed tabular family together with
-    parallel.dp.policy_iteration_sharded; VERDICT r2 next #7).
+    parallel.dp.policy_iteration_sharded).
 
     Each round every shard rolls its local B/n episodes under the shared
     replicated Q, computes its local first-visit return increments, and
@@ -631,7 +629,7 @@ def mc_prediction_sharded(
     parity: bool = False,
 ):
     """Distributed first-visit MC state-value prediction — the prediction
-    twin of mc_control_sharded (VERDICT r3 next #7). Episodes sharded over
+    twin of mc_control_sharded. Episodes sharded over
     the mesh; V is computed identically on every replica from the global
     per-state return sums/counts.
 
@@ -802,7 +800,7 @@ def td_lambda_prediction_sharded(
     """Distributed TD(λ) policy EVALUATION — learn V^π for a fixed
     stochastic (S, A) policy with per-env (B/n, S) eligibility traces
     sharded with their envs and V replicated (the prediction member of
-    the all-reduce family; VERDICT r3 next #7).
+    the all-reduce family).
 
     Per step each shard computes its local trace-weighted partial
     `Σ_b δ_b·e_b` and live-trace counts; both are psum'd (2·S floats on

@@ -1,22 +1,25 @@
-"""Device mesh construction — the TPU-native 'distributed backend'.
+"""Device mesh construction — the framework's 'distributed backend'.
 
 The reference has NO parallelism (SURVEY.md §2.3): single process, single
 env. The distributed scope comes from the BASELINE north star: envs sharded
-over hosts of a v5p multi-host slice feeding a sharded learner via
-all-reduce. TPU-first, there is no NCCL/MPI backend to write — parallelism
-is a `jax.sharding.Mesh` + `PartitionSpec`s, and the XLA runtime maps
-collectives onto ICI within a slice / DCN across slices (SURVEY.md §5
-"Distributed communication backend").
+over hosts feeding a sharded learner via all-reduce. There is no NCCL/MPI
+code to write — parallelism is a `jax.sharding.Mesh` + `PartitionSpec`s,
+and the XLA runtime carries the collectives (NCCL over NVLink between
+cards; Gloo between CPU processes; SURVEY.md §5 "Distributed
+communication backend").
 
 Mesh conventions:
   * 1-D `('env',)` mesh — pure env data-parallelism; the only collective is
     the psum combining learner updates / episode stats.
   * 2-D `('host', 'env')` mesh — same semantics, but the leading axis maps
-    to hosts so array shards line up host-locally on multi-host slices
+    to hosts so array shards line up host-locally on multi-process runs
     (each host owns its addressable shard of the env-state arrays).
 
-On this dev box, meshes are exercised on a virtual 8-device CPU platform
-(tests/conftest.py); the same code runs unchanged on a real v5p slice.
+On cards the mesh follows the algorithm, not a torus: every axis shards
+the env batch, so one host's cards, all-to-all over NVLink, serve any
+mesh shape. The tests exercise meshes on a virtual 8-device CPU platform
+(tests/conftest.py); the same code runs unchanged on four cards
+(`python chip_smoke.py --four-cards`).
 """
 
 from __future__ import annotations

@@ -101,7 +101,7 @@ def episode_stats_sharded(
             jnp.zeros(local, jnp.int32),
         )
         (state, _, n_eps, ret_sum, len_sum, _), _ = jax.lax.scan(body, init, keys)
-        # all-reduce the scalar stats over every mesh axis (ICI/DCN)
+        # all-reduce the scalar stats over every mesh axis
         n_eps = jax.lax.psum(n_eps, axes)
         ret_sum = jax.lax.psum(ret_sum, axes)
         len_sum = jax.lax.psum(len_sum, axes)

@@ -1,4 +1,4 @@
-"""True multi-process runtime tests (VERDICT r1 missing #1).
+"""True multi-process runtime tests.
 
 Launches REAL OS processes (2 procs × 4 virtual CPU devices each) joined
 through `jax.distributed.initialize` into one 8-device global mesh, and
@@ -16,7 +16,7 @@ asserts:
 
 These run the same `parallel/` entry points the single-process tests use —
 nothing is mocked; the collectives ride Gloo across the process boundary
-exactly as they ride ICI on a real slice.
+as they ride NCCL between cards.
 """
 
 from __future__ import annotations
@@ -316,7 +316,7 @@ _PPO_WORKER = textwrap.dedent(
     )
     import jax
     import numpy as np
-    from flax import serialization
+    from tests._tree_bytes import tree_from_bytes, tree_to_bytes
 
     from griduniverse_tpu import make_semantics
     from griduniverse_tpu.levels.builders import make_level_from_indices
@@ -339,7 +339,7 @@ _PPO_WORKER = textwrap.dedent(
         )
         if pid == 0:
             (out_dir / "params1.bytes").write_bytes(
-                serialization.to_bytes(res.params)
+                tree_to_bytes(res.params)
             )
         assert np.isfinite(fetch_replicated(res.final_loss))
         (out_dir / f"ppo_ready_{pid}").touch()
@@ -352,7 +352,7 @@ _PPO_WORKER = textwrap.dedent(
     else:  # phase == "resume": fresh runtime, warm-start from checkpoint
         net = make_network(level, 4, cfg)
         template = _net_init(net, jax.random.PRNGKey(7))
-        params0 = serialization.from_bytes(
+        params0 = tree_from_bytes(
             template, (out_dir / "params1.bytes").read_bytes()
         )
         res = ppo_train_sharded(
@@ -362,7 +362,7 @@ _PPO_WORKER = textwrap.dedent(
         assert np.isfinite(fetch_replicated(res.final_loss))
         if pid == 0:
             (out_dir / "params2.bytes").write_bytes(
-                serialization.to_bytes(res.params)
+                tree_to_bytes(res.params)
             )
         print("WORKER_OK", flush=True)
     """
@@ -384,14 +384,13 @@ def _ppo_cfg_and_level():
 
 
 def test_multiprocess_ppo_parity_and_sigkill_restart(tmp_path):
-    """The neural layer across a REAL process boundary (VERDICT r2 next
-    #5): (a) 2-process sharded PPO equals the single-process 8-device run
+    """The neural layer across a REAL process boundary: (a) 2-process sharded PPO equals the single-process 8-device run
     (pmean across Gloo == pmean across the in-process mesh); (b) after
     SIGKILLing BOTH workers mid-training, relaunched processes
     re-initialize the distributed runtime and resume from the checkpointed
     params — and the resumed result again equals a single-process
     warm-started run."""
-    from flax import serialization
+    from tests._tree_bytes import tree_from_bytes, tree_to_bytes
 
     from griduniverse_tpu import make_semantics
     from griduniverse_tpu.models import make_network, ppo_train_sharded
@@ -433,7 +432,7 @@ def test_multiprocess_ppo_parity_and_sigkill_restart(tmp_path):
     cfg, level = _ppo_cfg_and_level()
     net = make_network(level, 4, cfg)
     template = _net_init(net, jax.random.PRNGKey(7))
-    params1 = serialization.from_bytes(
+    params1 = tree_from_bytes(
         template, (tmp_path / "params1.bytes").read_bytes()
     )
 
@@ -461,7 +460,7 @@ def test_multiprocess_ppo_parity_and_sigkill_restart(tmp_path):
         assert p.returncode == 0, f"rc={p.returncode}\n{so[-1500:]}\n{se[-3000:]}"
         assert "WORKER_OK" in so
 
-    params2 = serialization.from_bytes(
+    params2 = tree_from_bytes(
         template, (tmp_path / "params2.bytes").read_bytes()
     )
     ref2 = ppo_train_sharded(
@@ -499,7 +498,7 @@ _FULLSTATE_WORKER = textwrap.dedent(
     )
     import jax
     import numpy as np
-    from flax import serialization
+    from tests._tree_bytes import tree_from_bytes, tree_to_bytes
 
     from griduniverse_tpu import make_semantics
     from griduniverse_tpu.levels.builders import make_level_from_indices
@@ -526,7 +525,7 @@ _FULLSTATE_WORKER = textwrap.dedent(
         host_state = fetch_global(mesh, ts)
         if pid == 0:
             (out_dir / "state8.bytes").write_bytes(
-                serialization.to_bytes(host_state)
+                tree_to_bytes(host_state)
             )
         (out_dir / f"fs_ready_{pid}").touch()
         # long second leg — the harness SIGKILLs both processes mid-flight
@@ -534,14 +533,14 @@ _FULLSTATE_WORKER = textwrap.dedent(
         sys.exit(9)  # must never complete
     else:  # phase == "resume": fresh runtime, FULL-state restore
         template = jax.tree.map(np.zeros_like, fetch_global(mesh, ts0))
-        state8 = serialization.from_bytes(
+        state8 = tree_from_bytes(
             template, (out_dir / "state8.bytes").read_bytes()
         )
         ts = ppo_run_sharded(mesh, sem, level, state8, cfg, num_updates=6)
         host_state = fetch_global(mesh, ts)
         if pid == 0:
             (out_dir / "state14.bytes").write_bytes(
-                serialization.to_bytes(host_state)
+                tree_to_bytes(host_state)
             )
         print("WORKER_OK", flush=True)
     """
@@ -549,12 +548,12 @@ _FULLSTATE_WORKER = textwrap.dedent(
 
 
 def test_multiprocess_fullstate_sigkill_resume(tmp_path):
-    """The r4 full-state recovery drill (VERDICT r3 next #1b): SIGKILL both
+    """The full-state recovery drill: SIGKILL both
     workers mid-training, relaunch, restore the ENTIRE sharded TrainState
     (including Adam momenta, env states and counters) from the checkpoint,
     and the resumed cross-process run must equal an UNBROKEN in-process
     run(8+6) — not merely a warm-started one."""
-    from flax import serialization
+    from tests._tree_bytes import tree_from_bytes, tree_to_bytes
 
     from griduniverse_tpu import make_semantics
     from griduniverse_tpu.models import ppo_init_sharded, ppo_run_sharded
@@ -617,7 +616,7 @@ def test_multiprocess_fullstate_sigkill_resume(tmp_path):
         ),
     )
     template = jax.tree.map(np.zeros_like, fetch_global(mesh, ts0))
-    resumed = serialization.from_bytes(
+    resumed = tree_from_bytes(
         template, (tmp_path / "state14.bytes").read_bytes()
     )
 

@@ -173,8 +173,7 @@ def test_batched_pi_sharded_matches_unsharded(maze_stack):
 
 class TestGridFormVI:
     """value_iteration_batched_grid (r4): the static-candidate backup must
-    be BIT-identical to the table + select-tree form (the probe-verified
-    claim, tools/vi_probe.py)."""
+    be BIT-identical to the table + select-tree form."""
 
     def test_bitequal_to_table_form(self):
         import jax
@@ -200,7 +199,7 @@ class TestGridFormVI:
         vg, pg, ig = value_iteration_batched_grid(SEM, levels)
         # a SINGLE backup is bit-identical across the two forms (checked
         # below); across sweeps backend-specific FMA fusion can drift the
-        # last ulp (TPU measured bit-equal in tools/vi_probe.py; CPU not)
+        # last ulp (CPU does)
         # — so assert V to float tolerance and policies by their chosen
         # action VALUES (ulp drift may flip exact ties)
         np.testing.assert_allclose(

@@ -344,8 +344,8 @@ class TestShardedMCControl:
 
 
 class TestShardedPrediction:
-    """The prediction members of the distributed family (VERDICT r3 next
-    #7): mc_prediction_sharded and td_lambda_prediction_sharded."""
+    """The prediction members of the distributed family:
+    mc_prediction_sharded and td_lambda_prediction_sharded."""
 
     @pytest.mark.parametrize("mesh_name", ["mesh1d", "mesh2d"])
     def test_mc_prediction_parity_bitexact(self, mesh_name, request):

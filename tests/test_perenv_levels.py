@@ -1,4 +1,4 @@
-"""Per-env-level training, end to end (VERDICT r2 missing #1 / next #1).
+"""Per-env-level training, end to end.
 
 The framework's flagship composition: 64k-style distinct on-device mazes
 (BASELINE config 4) × the neural learner stack (config 5). Covers:
@@ -198,7 +198,7 @@ class TestShardedBatchedLevels:
 
 
 class TestMazeGeneralization:
-    """The flagship gate (VERDICT r2 next #1c): one agent trained across
+    """The flagship gate: one agent trained across
     1024 DISTINCT on-device mazes must solve held-out mazes it never saw,
     far above the untrained baseline."""
 
@@ -206,13 +206,13 @@ class TestMazeGeneralization:
         train_lv = maze_levels(jax.random.PRNGKey(0), 1024)
         eval_lv = maze_levels(jax.random.PRNGKey(99), 64)
         # The conservative anti-collapse recipe (low lr, high entropy):
-        # measured train 0.28 / eval 0.23 on 3/3 TPU seeds AND the 8-device
-        # CPU mesh (seed 1) at 200 updates — robustly past the thresholds.
+        # train 0.28 / eval 0.23 on three seeds and on the 8-device CPU
+        # mesh (seed 1) at 200 updates — robustly past the thresholds.
         # Hotter recipes learn the same plateau faster but collapse to 0.0
         # on some seed/backend combinations (PPO maze training is bimodal;
-        # docs/PERFORMANCE.md §12 — longer runs with a wider trunk escape
-        # the maze-blind plateau and reach eval 0.77, with a wrong-tiles
-        # ablation of 0.17 proving the policy reads the maze structure).
+        # longer runs with a wider trunk escape the maze-blind plateau,
+        # and the wrong-tiles ablation proves the policy reads the maze
+        # structure — GENERALIZATION.json).
         cfg = PPOConfig(
             rollout_len=16, max_episode_steps=48, obs="grid",
             conv_channels=(16,), hidden=(32,), compute_dtype="float32",
@@ -339,7 +339,7 @@ def test_sharded_trainer_accepts_scalar_start_batched_level():
 
 class TestTabularEvaluation:
     """greedy_reached_tabular / greedy_success_rate_tabular — the (N, S)
-    tabular twin of the network metric (VERDICT r3 next #5)."""
+    tabular twin of the network metric."""
 
     def test_vi_policies_solve_perfect_mazes(self):
         # batched VI on perfect mazes → optimal policies → success 1.0
@@ -410,8 +410,7 @@ class TestTabularEvaluation:
 class TestAgentPlaneStamp:
     """agent_plane='stamp' (r4 default): conv of a one-hot agent image ≡
     one (B, S) @ (S, S·ch0) matmul against the stamp table
-    T = conv_0(identity images). Same math as the direct conv lowering —
-    measured +22% end-to-end on TPU at ch32 (tools/conv_probe.py)."""
+    T = conv_0(identity images). Same math as the direct conv lowering."""
 
     def test_stamp_equals_conv_forward_and_grads(self):
         kw = dict(
@@ -471,8 +470,7 @@ class TestAgentPlaneStamp:
 
 @pytest.mark.slow
 def test_maze_reading_ablation_gate():
-    """The committed proof that a trained policy READS the maze (VERDICT
-    r3 next #2c) — not just that it reaches the plateau. CI-sized
+    """The committed proof that a trained policy READS the maze — not just that it reaches the plateau. CI-sized
     construction: 512 distinct 5×5 Aldous–Broder mazes (exactly uniform —
     no binary-tree motion-prior to exploit), 400 updates. The chosen seed
     reaches held-out success 1.00 with wrong-tiles ablation 0.41 on both
@@ -518,8 +516,7 @@ def test_maze_reading_ablation_gate():
 
 
 def test_fresh_maze_curriculum_composition():
-    """The 11x11 artifact recipe's building block (docs/PERFORMANCE.md
-    §12.2): training chunks over FRESHLY REGENERATED maze sets with
+    """The 11x11 artifact recipe's building block: training chunks over FRESHLY REGENERATED maze sets with
     params+opt_state carried across the level swap. The Adam count in
     opt_state must run CONTINUOUSLY across chunks (so an lr schedule
     spans the whole curriculum, not one chunk), and training must

@@ -1,4 +1,4 @@
-"""Resumable SHARDED neural training (VERDICT r3 next #1).
+"""Resumable SHARDED neural training.
 
 The sharded trainers carry the FULL TrainState through the shard_map
 boundary — params, optimizer momenta, target nets, replay buffers, env
@@ -314,7 +314,7 @@ class TestElasticResume:
     def test_dqn_elastic_gated_on_full_buffer(self):
         """A partially-filled replay buffer must refuse to reshard: the
         per-shard valid-region derivation would expose never-written
-        slots on the new mesh (ADVICE r4 medium)."""
+        slots on the new mesh."""
         import pytest
         from jax.sharding import Mesh
 

@@ -1,4 +1,4 @@
-"""MXU-native fast TD learner: convergence + sharded equivalence.
+"""Matmul-form fast TD learner: convergence + sharded equivalence.
 
 The fast learner (algos/td_fast.py) re-expresses table lookups and the
 (s,a)-aggregated update as one-hot matmuls. On CPU, f32 one-hot matmuls
@@ -109,7 +109,7 @@ def test_sharded_fast_td_matches_unsharded():
 
 
 def test_fast_td_chunked_run_is_bitexact():
-    """The checkpointable API (VERDICT r1 missing #3): N chunks of the
+    """The checkpointable API: N chunks of the
     compiled chunk-runner reproduce the one-shot compile_q_learning_fast
     run BIT-exactly — env FastState, xorshift lanes, accumulators and Q all
     live in FastTDTrainState, so a chunk boundary is invisible."""

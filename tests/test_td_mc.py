@@ -177,7 +177,7 @@ class TestMC:
         np.testing.assert_allclose(v[1], 10.0, atol=1e-5)
 
     def test_mc_prediction_truncation_unbiased(self):
-        """VERDICT r1 weakness #2: with a binding step budget, unfinished
+        """With a binding step budget, unfinished
         episodes carry PARTIAL returns and must be excluded. Pin the exact
         semantics against a straight-line NumPy aggregation of the SAME
         rolled episodes (finished-only, first-visit), and prove the old

@@ -1,5 +1,4 @@
-"""Recipe hunter for the flagship maze-generalization task (VERDICT r4
-next #2b): sweep PPO hyperparameters on N×N Aldous–Broder mazes and
+"""Recipe hunter for the flagship maze-generalization task: sweep PPO hyperparameters on N×N Aldous–Broder mazes and
 print train/held-out/ablation per seed, so the committed artifact's
 recipe is found by measurement rather than folklore.
 
@@ -10,7 +9,6 @@ generalizes ≥0.85. So the hunt targets seed-robust optimization:
 updates, γ (credit horizon), entropy, lr schedule, episode caps.
 
 Run:  python tools/recipe_sweep.py --cells 4 --updates 4000 --seeds 1 2 3
-Each 9×9 run is ~10-30 s on a v5e chip.
 """
 
 from __future__ import annotations

@@ -1,5 +1,4 @@
-"""Best-effort repro for the host XLA-CPU compile segfault (VERDICT r4
-weak #5 / r5 next #8).
+"""Best-effort repro for the host XLA-CPU compile segfault.
 
 Observed failure (2026-08-21/22, FOUR times, jax==0.9.0 jaxlib==0.9.0 on
 this 2-core linux box): running the FULL test suite in one pytest
